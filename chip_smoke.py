@@ -25,7 +25,31 @@ Phases, each fatal on failure:
    request must finish, K4 must have launched once per layer of every
    decode step, and for two requests the teacher-forced decode logits of
    the kernel path must match the plain path's;
-5. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+5. flash kernel phase: the flash-attention forward (K1: out and lse) and
+   backward (K2: dQ, K3: dK and dV) against their plain versions on the
+   card, over fp32 and bf16, head dims 64 and 128, non-causal, causal,
+   window 256 and window 256 with q_offset 300 (rows wholly masked),
+   T in {1, 100, 1000, 1024} (tail tiles, no dense fallback), B*H up to
+   32, plus the ``with_lse`` backward with a nonzero lse cotangent; then
+   each kernel's time at the training path's shapes (B=2, H=16, T=8192,
+   D=128, causal, bf16) beside the plain version's (run four heads at a
+   time so it fits), ``scaled_dot_product_attention`` (forward, and its
+   backward as forward+backward minus forward; a yardstick the port never
+   calls) and the bound;
+6. training phase, the port's second main path: ``Trainer`` over the same
+   full-width TransformerLM with float32 parameters and bf16 compute,
+   ``Adam(lr=1e-4)``, softmax cross-entropy, 8 seeded random sequences of
+   8192 tokens at batch 2 (4 steps an epoch), ``save_every=1`` into a
+   snapshot in a temporary directory: epoch 0, then a fresh Trainer on the
+   same snapshot must resume at epoch 1 and step 4 and run epoch 1. K1, K2
+   and K3 must each have launched n_layers x steps times; every loss must
+   be finite and the epoch-0 loss near a random model's;
+7. one training step at T=1024 through the kernels and through the plain
+   attention, from the same weights and batch: loss and per-parameter
+   gradient norms must agree; the same step through three planted faults
+   of the plain attention (no causal mask, dK zeroed, dK off by 5%) must
+   fail those limits;
+8. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is visible or the
@@ -34,9 +58,14 @@ port is not importable from this directory.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,12 +83,46 @@ NEW_TOKENS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
-# Kernel vs plain version, absolute plus relative. fp32: both sum in fp32
-# in another order. bf16: the plain version rounds scores and the weighted
-# sum through bf16 where the kernel keeps fp32, ~2^-8 relative. The same
-# holds for int8 pages read with a bf16 query (dequantized in bf16 by the
-# plain version, in fp32 by the kernel).
-KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Kernel vs plain version, (atol, rtol): |got - ref| <= atol + rtol * |ref|
+# everywhere. fp32: both sum in fp32 in another order. bf16: the plain
+# version rounds scores and the weighted sum through bf16 where the kernel
+# keeps fp32, ~2^-8 relative. The same holds for int8 pages read with a
+# bf16 query (dequantized in bf16 by the plain version, in fp32 by the
+# kernel).
+KERNEL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+# Flash kernels vs their plain versions, which round where the kernels
+# round. fp32, element by element: sums in another order. bf16, row by row
+# (RMS over the head dim): the fp32 sums differ in their last bits, which
+# now and then flips the bf16 rounding of one probability (or dS) and moves
+# its row by up to 2^-8 of that term, however small the element is after
+# cancellation; a row's RMS error stays well under 1% of the row's RMS.
+# lse is float32 on both sides whatever q's dtype, element by element.
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 1e-2)}
+LSE_TOL = (1e-5, 1e-5)
+# The with_lse backward (fp32) against autograd through the plain forward:
+# the same gradient by two algorithms, ~1e-6 apart.
+WITH_LSE_TOL = 1e-4
+# Training path: the full-width model at the repo's LM benchmark shapes.
+TRAIN_T = 8192
+TRAIN_BATCH = 2
+TRAIN_SEQS = 8
+TRAIN_LR = 1e-4
+# A random model's cross-entropy with this init: the LM head's lecun-normal
+# kernel over LayerNorm-ed features gives unit-variance logits, so the loss
+# starts at ln V + 1/2 (10.897), and 4 steps of Adam at 1e-4 move it little.
+LOSS_START = math.log(MODEL["vocab_size"]) + 0.5
+LOSS_BAND = 0.5
+# Kernel path vs plain attention, one training step at T=1024 of the bf16
+# model: attention outputs differ by bf16 rounding in 6 layers (measured on
+# an H100 SXM at 700 W: loss 1.6e-4, gradient norms 8.0e-4 relative). The
+# same step through planted faults of the plain attention (FAULTS) must
+# fail these limits, or the check is void.
+STEP_LOSS_TOL = 2e-3
+STEP_GRAD_RTOL = 1e-2
+# Controls: no causal mask (a forward fault), dK zeroed and dK off by 5%
+# (backward faults).
+FAULTS = ("no_causal_mask", "dk_zero", "dk_5pct")
+CHECK_T = 1024
 # Teacher-forced logits, kernel path vs plain path, bf16 model: the
 # attention outputs differ by bf16 rounding in each of 6 layers and the
 # difference reaches the logits (scale ~5 here; 0.039 measured on an H100
@@ -71,11 +134,21 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def agrees(out: torch.Tensor, ref: torch.Tensor, tol: float) -> bool:
-    """|out - ref| <= tol + tol * |ref| everywhere: a bf16 result may be a
+def limit_used(out: torch.Tensor, ref: torch.Tensor, tol, per_row: bool = False) -> float:
+    """The largest |out - ref| / (atol + rtol * |ref|): the share of the
+    limit ``tol = (atol, rtol)`` that the worst element uses; with
+    ``per_row``, the worst row's, from RMS values over the last dim."""
+    atol, rtol = tol
+    diff, ref = (out.float() - ref.float()).abs(), ref.float().abs()
+    if per_row:
+        diff, ref = diff.square().mean(-1).sqrt(), ref.square().mean(-1).sqrt()
+    return (diff / (atol + rtol * ref)).max().item()
+
+
+def agrees(out: torch.Tensor, ref: torch.Tensor, tol) -> bool:
+    """|out - ref| <= atol + rtol * |ref| everywhere: a bf16 result may be a
     rounding step off, and that step grows with the value."""
-    out, ref = out.float(), ref.float()
-    return bool(((out - ref).abs() <= tol + tol * ref.abs()).all())
+    return limit_used(out, ref, tol) <= 1.0
 
 
 def card_line() -> str:
@@ -168,11 +241,12 @@ def kernel_phase(device) -> dict:
         err = (out.float() - ref.float()).abs().max().item()
         tol = KERNEL_TOL[dtype]
         live = torch.tensor(lens, device=device) > 0
-        print(f"kernel {name}: max_abs_err {err:.3e} (tol {tol:.0e} abs + rel)", flush=True)
+        print(f"kernel {name}: max_abs_err {err:.3e} "
+              f"(tol {tol[0]:.0e} abs + {tol[1]:.0e} rel)", flush=True)
         if not torch.isfinite(out).all() or not torch.isfinite(poisoned).all():
             fail(f"kernel {name}: non-finite output")
         if not agrees(out, ref, tol):
-            fail(f"kernel {name}: max_abs_err {err} beyond {tol} abs + rel")
+            fail(f"kernel {name}: max_abs_err {err} beyond {tol} (abs, rel)")
         if not torch.equal(poisoned[live], out[live]):
             fail(f"kernel {name}: a poisoned NULL page moved a live row")
 
@@ -366,6 +440,402 @@ def teacher_forced_check(model, prompts, served, kv_quant, device) -> float:
     return err
 
 
+def flash_problem(gen, bh, t, d, dtype, device):
+    return tuple(
+        torch.randn(bh, t, d, generator=gen, device=device).to(dtype) for _ in range(4)
+    )
+
+
+def flash_errors(q, k, v, do, causal, window, q_offset):
+    """Check out, lse, dQ, dK and dV of one problem against the plain
+    versions at the limits of q's dtype (lse: float32's). Returns, per
+    tensor, (max |kernel - plain|, median |plain|, share of the limit used)."""
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_fwd(q, k, v, causal, window, q_offset)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, causal, window, q_offset)
+    delta = (do.float() * ref_out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, ref_lse, delta, causal, window, q_offset)
+    pairs = {
+        "out": (out, ref_out),
+        "lse": (lse, ref_lse),
+        "dq": (fa.flash_bwd_dq(*args), fa.flash_bwd_dq_reference(*args)),
+    }
+    pairs["dk"], pairs["dv"] = zip(fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_reference(*args))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, (got, ref) in pairs.items():
+        tol = LSE_TOL if name == "lse" else FLASH_TOL[q.dtype]
+        per_row = name != "lse" and q.dtype == torch.bfloat16
+        if not torch.isfinite(got).all():
+            fail(f"flash {name}: non-finite output")
+        used = limit_used(got, ref, tol, per_row)
+        if not used <= 1.0:
+            fail(f"flash {name} (T={q.shape[1]}, D={q.shape[2]}, {q.dtype}, "
+                 f"causal={causal}, window={window}, q_offset={q_offset}): "
+                 f"beyond {tol} (abs, rel{', by row' if per_row else ''}), "
+                 f"{used:.2f} of the limit")
+        errs[name] = ((got.float() - ref.float()).abs().max().item(),
+                      ref.float().abs().median().item(), used)
+    return errs
+
+
+def describe_errors(errs: dict) -> str:
+    return " ".join(f"{k} {e:.2e} (median |ref| {m:.2e}, {u:.2f} of limit)"
+                    for k, (e, m, u) in errs.items())
+
+
+def plain_in_chunks(fn, *tensors, heads=4):
+    """The plain version four (b, h) slabs at a time, concatenated: heads
+    are independent, so this is the same function in less memory."""
+    outs = [fn(*(x[i : i + heads] for x in tensors)) for i in range(0, tensors[0].shape[0], heads)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def flash_phase(device) -> dict:
+    """K1-K3 against their plain versions over the cover, then timed at the
+    training path's shapes. Returns the kernels-line fields per kernel."""
+    from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    masks = [(False, 0, 0), (True, 0, 0), (True, 256, 0), (True, 256, 300)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            worst = {}
+            for causal, window, q_offset in masks:
+                for t in (1, 100, 1000, 1024):
+                    bh = 32 if t <= 100 else 16
+                    errs = flash_errors(*flash_problem(gen, bh, t, d, dtype, device),
+                                        causal, window, q_offset)
+                    for k, e in errs.items():  # keep the problem nearest its limit
+                        if k not in worst or e[2] > worst[k][2]:
+                            worst[k] = e
+            atol, rtol = FLASH_TOL[dtype]
+            by = "row RMS" if dtype == torch.bfloat16 else "element"
+            print(f"flash kernels {str(dtype)[6:]} D={d} (4 masks x T in 1/100/1000/1024; "
+                  f"tol {atol:.0e} abs + {rtol:.0e} rel by {by}, lse {LSE_TOL[0]:.0e} + "
+                  f"{LSE_TOL[1]:.0e} by element): " + describe_errors(worst), flush=True)
+
+    # with_lse: the lse cotangent folds into delta; hold the kernels'
+    # gradient against autograd through the plain forward (fp32).
+    q, k, v, g = (x.requires_grad_() if i < 3 else x
+                  for i, x in enumerate(flash_problem(gen, 8, 1000, 128, torch.float32, device)))
+    dlse = torch.randn(*q.shape[:2], 1, generator=gen, device=device)
+    grads = []
+    for fwd in (lambda: fa.flash_attention_with_lse(q, k, v, True, 256, 0),
+                lambda: fa.flash_fwd_reference(q, k, v, True, 256, 0)):
+        out, lse = fwd()
+        grads.append(torch.autograd.grad((out * g).sum() + (lse * dlse).sum(), (q, k, v)))
+    torch.cuda.synchronize()
+    lse_err = max((a - b).abs().max().item() for a, b in zip(*grads))
+    print(f"flash with_lse backward (fp32, T=1000, window 256, dlse != 0) vs "
+          f"autograd through the plain forward: {lse_err:.2e} (tol {WITH_LSE_TOL:.0e})",
+          flush=True)
+    if not all(agrees(a, b, (WITH_LSE_TOL, WITH_LSE_TOL)) for a, b in zip(*grads)):
+        fail(f"flash with_lse backward differs by {lse_err}")
+
+    # Timing at the training path's shapes.
+    b, h, t, d = TRAIN_BATCH, MODEL["n_heads"], TRAIN_T, MODEL["d_model"] // MODEL["n_heads"]
+    q, k, v, do = flash_problem(gen, b * h, t, d, torch.bfloat16, device)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    ref_out, ref_lse = plain_in_chunks(
+        lambda *x: fa.flash_fwd_reference(*x, True), q, k, v)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    bwd_args = (q, k, v, do, lse, delta)
+    dq = fa.flash_bwd_dq(*bwd_args, True)
+    dk, dv = fa.flash_bwd_dkv(*bwd_args, True)
+    ref_dq = plain_in_chunks(lambda *x: fa.flash_bwd_dq_reference(*x, True), *bwd_args)
+    ref_dk, ref_dv = plain_in_chunks(lambda *x: fa.flash_bwd_dkv_reference(*x, True), *bwd_args)
+    torch.cuda.synchronize()
+    main_err, shown = {}, {}
+    for name, part, got, ref in (
+        ("fwd", "out", out, ref_out), ("fwd", "lse", lse, ref_lse), ("dq", "dq", dq, ref_dq),
+        ("dkv", "dk", dk, ref_dk), ("dkv", "dv", dv, ref_dv),
+    ):
+        tol = LSE_TOL if part == "lse" else FLASH_TOL[torch.bfloat16]
+        used = limit_used(got, ref, tol, per_row=part != "lse")
+        if not used <= 1.0:
+            fail(f"flash {part} at the training shapes: beyond {tol} (abs, rel), "
+                 f"{used:.2f} of the limit")
+        err = (got.float() - ref.float()).abs().max().item()
+        shown[part] = (err, ref.float().abs().median().item(), used)
+        if part != "lse":  # the kernels line's max_abs_err: the bf16 outputs
+            main_err[name] = max(main_err.get(name, 0.0), err)
+    print("flash kernels at the training shapes (B=2, H=16, T=8192, D=128, causal, "
+          "bf16): " + describe_errors(shown), flush=True)
+    del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)  # 256 MB
+    ms = {
+        "fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True), 5, flush),
+        "dq": time_ms(lambda: fa.flash_bwd_dq(*bwd_args, True), 5, flush),
+        "dkv": time_ms(lambda: fa.flash_bwd_dkv(*bwd_args, True), 5, flush),
+    }
+    plain_ms = {
+        "fwd": time_ms(lambda: plain_in_chunks(
+            lambda *x: fa.flash_fwd_reference(*x, True), q, k, v), 2, flush),
+        "dq": time_ms(lambda: plain_in_chunks(
+            lambda *x: fa.flash_bwd_dq_reference(*x, True), *bwd_args), 2, flush),
+        "dkv": time_ms(lambda: plain_in_chunks(
+            lambda *x: fa.flash_bwd_dkv_reference(*x, True), *bwd_args), 2, flush),
+    }
+    q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_() for x in (q, k, v))
+    g4 = do.view(b, h, t, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), 10, flush)
+    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(q4, k4, v4, is_causal=True), (q4, k4, v4), g4), 10, flush)
+    # SDPA's backward computes dQ, dK and dV in one call: no library call
+    # does K2's or K3's work alone, so their library_ms is null and the
+    # combined backward is printed once beside K2 + K3.
+    sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd
+    library_ms = {"fwd": sdpa_fwd, "dq": None, "dkv": None}
+
+    # Bounds: the visible (query, key) pairs of causal attention, 2 flops per
+    # multiply-add per head dim per product (K1: S and PV; K2: S, dP, dQ; K3:
+    # S, dP, dV, dK) over the bf16 peak; bytes: each bf16 operand read once,
+    # each output written once, lse and delta 4 bytes a row.
+    pairs = b * h * t * (t + 1) // 2
+    slab = b * h * t * d * 2
+    rows = b * h * t * 4
+    work = {
+        "fwd": (2, 3 * slab + slab + rows),
+        "dq": (3, 4 * slab + 2 * rows + slab),
+        "dkv": (4, 4 * slab + 2 * rows + 2 * slab),
+    }
+    result = {}
+    for name, (products, nbytes) in work.items():
+        flops = products * 2 * pairs * d
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        result[name] = {
+            "max_abs_err": main_err[name],
+            "ms": ms[name],
+            "plain_ms": plain_ms[name],
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms[name],
+        }
+        sdpa_text = "n/a" if library_ms[name] is None else f"{library_ms[name]:.3f} ms"
+        print(f"flash {name} timing (B={b}, H={h}, T={t}, D={d}, causal, bf16): "
+              f"kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.3f} ms, sdpa "
+              f"{sdpa_text}, bound {result[name]['bound_ms']:.4f} ms "
+              f"({flops} flop / 989 TFLOP/s; {nbytes} B / 3.35 TB/s = "
+              f"{bytes_ms:.4f} ms), max_abs_err {main_err[name]:.3e}", flush=True)
+    print(f"flash backward timing: K2 + K3 {ms['dq'] + ms['dkv']:.3f} ms, sdpa backward "
+          f"(dQ, dK, dV in one call; forward+backward minus forward) {sdpa_bwd:.3f} ms, "
+          f"bound {result['dq']['bound_ms'] + result['dkv']['bound_ms']:.4f} ms", flush=True)
+    return result
+
+
+def train_model(device, seed=SEED):
+    from distributed_pytorch_tpu_torch.models.transformer import TransformerLM, init_random_
+
+    model = TransformerLM(**MODEL, dtype=torch.bfloat16, param_dtype=torch.float32,
+                          device=device)
+    return init_random_(model, seed)
+
+
+class EpochLog:
+    """A MetricLogger that also keeps the epoch losses it prints."""
+
+    def __init__(self):
+        from distributed_pytorch_tpu_torch.metrics import MetricLogger
+
+        self.inner = MetricLogger()
+        self.epoch_losses = []
+
+    def log(self, step, **scalars):
+        if "epoch_loss" in scalars:
+            self.epoch_losses.append(scalars["epoch_loss"])
+        self.inner.log(step, **scalars)
+
+    def close(self):
+        self.inner.close()
+
+
+def training_phase(device) -> dict:
+    """The port's Trainer on the full-width model: epoch 0, then a fresh
+    Trainer resuming from the snapshot for epoch 1."""
+    from distributed_pytorch_tpu_torch.obs.goodput import transformer_train_flops
+    from distributed_pytorch_tpu_torch.ops import _build
+    from distributed_pytorch_tpu_torch.ops.flash_attention import (
+        KERNEL_BWD_DKV, KERNEL_BWD_DQ, KERNEL_FWD,
+    )
+    from distributed_pytorch_tpu_torch.training import Trainer, softmax_cross_entropy_loss
+    from distributed_pytorch_tpu_torch.utils.data import ArrayDataset, ShardedLoader
+
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, MODEL["vocab_size"], (TRAIN_SEQS, TRAIN_T + 1))
+    loader = ShardedLoader(ArrayDataset(tokens[:, :-1], tokens[:, 1:]), TRAIN_BATCH,
+                           shuffle=True, seed=SEED)
+    step_s = []
+
+    def build(tmp, seed):
+        model = train_model(device, seed)
+        trainer = Trainer(
+            model, loader, torch.optim.Adam(model.parameters(), lr=TRAIN_LR), 1,
+            snapshot_path=os.path.join(tmp, "snapshot.npz"),
+            loss_fn=softmax_cross_entropy_loss, metrics=EpochLog(), device=device,
+        )
+        step = trainer.train_step
+
+        def timed(state, batch):  # device time of each step, for the report
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        trainer.train_step = timed
+        return trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        first = build(tmp, SEED)
+        first.train(1)
+        losses = list(first.metrics.epoch_losses)
+        steps_epoch0 = first.state.step
+        del first
+        torch.cuda.empty_cache()
+        # A fresh Trainer on another init: the snapshot must override it.
+        second = build(tmp, SEED + 7)
+        if second.epochs_run != 1 or second.state.step != steps_epoch0:
+            fail(f"resume: epochs_run {second.epochs_run}, step {second.state.step}; "
+                 f"expected 1 and {steps_epoch0}")
+        second.train(2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses += second.metrics.epoch_losses
+        snapshot_bytes = os.path.getsize(os.path.join(tmp, "snapshot.npz"))
+        disk_free_gb = shutil.disk_usage(tmp).free / 1e9
+        final_step = second.state.step
+        del second
+    launches = {name: _build.LAUNCHES[name] for name in (KERNEL_FWD, KERNEL_BWD_DQ, KERNEL_BWD_DKV)}
+    steps = len(loader) * 2
+    if final_step != steps or len(step_s) != steps:
+        fail(f"training ran {final_step} steps ({len(step_s)} timed), expected {steps}")
+    expected = MODEL["n_layers"] * steps
+    if any(n != expected for n in launches.values()):
+        fail(f"training launched {launches}, expected {expected} each "
+             f"({MODEL['n_layers']} layers x {steps} steps)")
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        fail(f"epoch losses {losses}")
+    if abs(losses[0] - LOSS_START) > LOSS_BAND:
+        fail(f"epoch-0 loss {losses[0]} not within {LOSS_BAND} of {LOSS_START:.3f}")
+    p50 = sorted(step_s)[len(step_s) // 2]
+    d = MODEL["d_model"]
+    from distributed_pytorch_tpu_torch.models.transformer import TransformerLM
+
+    n_params = sum(p.numel() for p in TransformerLM(**MODEL, device="meta").parameters())
+    flops = transformer_train_flops(
+        n_params=n_params, embed_params=MODEL["vocab_size"] * d,
+        n_layers=MODEL["n_layers"], n_heads=MODEL["n_heads"], head_dim=d // MODEL["n_heads"],
+        seq_len=TRAIN_T, batch=TRAIN_BATCH,
+    )
+    result = {
+        "steps": steps,
+        "epoch_losses": losses,
+        "loss_minus_ln_vocab": losses[0] - math.log(MODEL["vocab_size"]),
+        "step_s_p50": p50,
+        "step_s": step_s,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_T / p50,
+        "train_flops_per_step": flops,
+        "mfu": flops / p50 / BF16_FLOPS_PER_S,
+        "wall_s": wall,
+        "snapshot_bytes": snapshot_bytes,
+        "disk_free_gb_after": disk_free_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+    }
+    print("training " + json.dumps(result), flush=True)
+    return result
+
+
+@contextlib.contextmanager
+def plain_attention(fault=None):
+    """Route the model's attention through the plain dense version, or,
+    with ``fault`` (one of FAULTS), through a planted fault of it."""
+    from distributed_pytorch_tpu_torch.models import transformer
+    from distributed_pytorch_tpu_torch.ops.attention import dot_product_attention
+
+    def attend(q, k, v, *, causal, window):
+        if fault == "no_causal_mask":
+            return dot_product_attention(q, k, v)
+        if fault == "dk_zero":
+            k = k.detach()
+        elif fault == "dk_5pct":
+            k.register_hook(lambda g: g * 0.95)
+        return dot_product_attention(q, k, v, causal=causal, window=window)
+
+    saved = transformer.flash_attention
+    transformer.flash_attention = attend
+    try:
+        yield
+    finally:
+        transformer.flash_attention = saved
+
+
+def training_step_check(device) -> dict:
+    """One training step at T=1024 through the kernels and through the
+    plain attention, from the same weights and batch; then through each
+    planted fault, which must fail the same limits."""
+    from distributed_pytorch_tpu_torch.training import (
+        create_train_state, make_train_step, softmax_cross_entropy_loss,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.from_numpy(rng.integers(0, MODEL["vocab_size"], (TRAIN_BATCH, CHECK_T + 1)))
+    batch = (tokens[:, :-1].to(device), tokens[:, 1:].to(device))
+    runs = [("kernels", contextlib.nullcontext()), ("plain", plain_attention())]
+    runs += [(fault, plain_attention(fault)) for fault in FAULTS]
+    out = {}
+    for name, ctx in runs:
+        model = train_model(device)
+        opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR)
+        step = make_train_step(model, opt, softmax_cross_entropy_loss)
+        with ctx:
+            _, loss = step(create_train_state(model, opt), batch)
+        norms = {n: 0.0 if p.grad is None else p.grad.float().norm().item()
+                 for n, p in model.named_parameters()}
+        out[name] = (loss.item(), norms)
+        del model, opt
+    torch.cuda.synchronize()
+
+    def gaps(name):
+        (loss, norms), (loss_p, norms_p) = out[name], out["plain"]
+        rel = max(abs(norms[n] - norms_p[n]) / max(norms_p[n], 1e-12) for n in norms_p)
+        return loss, abs(loss - loss_p), rel
+
+    loss_k, loss_gap, rel = gaps("kernels")
+    print(f"training step at T={CHECK_T}, kernels vs plain attention: loss "
+          f"{loss_k:.6f} vs {out['plain'][0]:.6f}, gap {loss_gap:.3e} (tol {STEP_LOSS_TOL}), "
+          f"max relative gradient-norm difference {rel:.3e} over {len(out['plain'][1])} "
+          f"tensors (tol {STEP_GRAD_RTOL})", flush=True)
+    if not math.isfinite(loss_k) or loss_gap > STEP_LOSS_TOL:
+        fail(f"training step loss {loss_k} vs plain {out['plain'][0]}")
+    if not rel <= STEP_GRAD_RTOL:
+        fail(f"training step gradient norms differ by {rel} (relative)")
+    controls = {}
+    for fault in FAULTS:
+        _, f_loss_gap, f_rel = gaps(fault)
+        caught = f_loss_gap > STEP_LOSS_TOL or f_rel > STEP_GRAD_RTOL
+        print(f"training step control {fault}: loss gap {f_loss_gap:.3e}, max relative "
+              f"gradient-norm difference {f_rel:.3e}: "
+              + ("fails the limits, as it must" if caught else "PASSES the limits"), flush=True)
+        if not caught:
+            fail(f"planted fault {fault} passes the training-step limits")
+        controls[fault] = {"loss_gap": f_loss_gap, "grad_norm_rel": f_rel}
+    return {"loss_kernels": loss_k, "loss_gap": loss_gap, "grad_norm_rel": rel,
+            "controls": controls}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -406,6 +876,12 @@ def main() -> int:
         launches += served["k4_launches"]
         teacher_forced_check(model, prompts, served, kv_quant, device)
 
+    flash = flash_phase(device)
+    del model
+    torch.cuda.empty_cache()
+    training = training_phase(device)
+    training_step_check(device)
+
     kernels = [{
         "name": "paged_attention_decode",
         "route": "cuda",
@@ -419,6 +895,20 @@ def main() -> int:
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
     }]
+    for name, replaces in (
+        ("flash_fwd", "distributed_pytorch_tpu/ops/flash_attention.py:77"),
+        ("flash_bwd_dq", "distributed_pytorch_tpu/ops/flash_attention.py:146"),
+        ("flash_bwd_dkv", "distributed_pytorch_tpu/ops/flash_attention.py:195"),
+    ):
+        row = flash[name.replace("flash_", "").replace("bwd_", "")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "distributed_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": training["launches"][name],
+            **row,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -6,10 +6,14 @@ any module of the JAX package. Module names follow the JAX package's, so
 ``distributed_pytorch_tpu/x/y.py`` has its counterpart at
 ``distributed_pytorch_tpu_torch/x/y.py``.
 
-This slice carries the paged serving engine: ``serving.InferenceEngine``
+Two paths are ported: the paged serving engine (``serving.InferenceEngine``
 over ``models.transformer.TransformerLM``, whose single-token decode
-attention is the hand-written CUDA kernel ``csrc/paged_attention.cu``.
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+attention is the hand-written CUDA kernel ``csrc/paged_attention.cu``) and
+single-device training (``training.Trainer`` over the same model, whose
+attention forward and backward are the hand-written CUDA kernels of
+``csrc/flash_attention.cu``), with ``utils.data.ShardedLoader`` and the
+checksummed snapshots of ``checkpoint``. Entry points run on CUDA unless
+the caller passes ``device="cpu"``.
 """
 
 from distributed_pytorch_tpu_torch.models.transformer import (
@@ -17,5 +21,23 @@ from distributed_pytorch_tpu_torch.models.transformer import (
     params_from_jax,
 )
 from distributed_pytorch_tpu_torch.serving import InferenceEngine, SamplingParams
+from distributed_pytorch_tpu_torch.training import (
+    Trainer,
+    make_train_step,
+    mse_loss,
+    softmax_cross_entropy_loss,
+)
+from distributed_pytorch_tpu_torch.utils.data import ArrayDataset, ShardedLoader
 
-__all__ = ["InferenceEngine", "SamplingParams", "TransformerLM", "params_from_jax"]
+__all__ = [
+    "ArrayDataset",
+    "InferenceEngine",
+    "SamplingParams",
+    "ShardedLoader",
+    "Trainer",
+    "TransformerLM",
+    "make_train_step",
+    "mse_loss",
+    "params_from_jax",
+    "softmax_cross_entropy_loss",
+]

@@ -1,17 +1,22 @@
-"""Bounded-memory latency reservoirs for the serving engine.
+"""Structured metrics: latency reservoirs and the training metric logger.
 
-A copy of the reservoir half of ``distributed_pytorch_tpu/metrics.py``
-(:class:`ReservoirHistogram`, :class:`ReservoirGroup`): stdlib-only, so the
-port keeps its own copy rather than importing the JAX package. The
-training-side ``MetricLogger`` arrives with the training slice.
+A copy of ``distributed_pytorch_tpu/metrics.py``: :class:`ReservoirHistogram`
+and :class:`ReservoirGroup` (the serving engine's TTFT/TPOT and the
+Trainer's step times) and :class:`MetricLogger` (one JSON line per report
+from process 0). The port keeps its own copy rather than importing the JAX
+package.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 import math
 import random
+import time
 from typing import Dict, Optional
+
+from distributed_pytorch_tpu_torch.parallel.bootstrap import is_main_process
 
 
 class ReservoirHistogram:
@@ -202,3 +207,32 @@ class ReservoirGroup:
                 )
             self._hists[label].merge_state(sub)
 
+
+class MetricLogger:
+    """Process-0 metric emitter: one JSON line per report + optional TensorBoard."""
+
+    def __init__(self, tensorboard_dir: Optional[str] = None):
+        self._writer = None
+        if tensorboard_dir and is_main_process():
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._writer = SummaryWriter(tensorboard_dir)
+            except ImportError:  # the TensorBoard backend is optional
+                self._writer = None
+        self._start = time.perf_counter()
+
+    def log(self, step: int, **scalars: float) -> None:
+        if not is_main_process():
+            return
+        record = {"step": int(step), "elapsed_s": round(time.perf_counter() - self._start, 3)}
+        record.update({k: float(v) for k, v in scalars.items()})
+        print(json.dumps(record), flush=True)
+        if self._writer is not None:
+            for key, value in scalars.items():
+                self._writer.add_scalar(key, value, step)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.flush()
+            self._writer.close()

@@ -1,27 +1,34 @@
-"""Decoder-only TransformerLM, serving path.
+"""Decoder-only TransformerLM: the paged serving path and the training path.
 
 The port of ``distributed_pytorch_tpu/models/transformer.py`` as far as the
-paged serving engine runs it: :func:`apply_rope`, the paged branch of
-:class:`Attention` (write this step's K/V into the page pools, then attend
-through the inline gather math or, for single-token decode steps, the
-paged-decode kernel), :class:`MLPBlock`, :class:`TransformerBlock` and
-:class:`TransformerLM` with its float32 LM head.
+paged serving engine and the single-device trainer run it:
+:func:`apply_rope`, :class:`Attention` (its paged branch writes this step's
+K/V into the page pools, then attends through the inline gather math or,
+for single-token decode steps, the paged-decode kernel K4; without a cache
+it is the full causal forward through the flash-attention kernels K1-K3),
+:class:`MLPBlock`, :class:`TransformerBlock` and :class:`TransformerLM`
+with its float32 LM head (or, with ``tie_embeddings``, the transposed
+token embedding).
 
-Numerics follow the JAX module: matmul weights and the embedding are held
-in the compute ``dtype`` (bf16 for serving; flax promotes its float32
-params to it at every call, so casting once at load is the same numbers),
-LayerNorms (epsilon 1e-6) and the LM head run in float32, GELU is the tanh
-approximation, RoPE uses the split-half layout with float32 angles, and the
-residual stream stays in the compute dtype.
+Numerics follow the JAX module: matmuls and the embedding run in the
+compute ``dtype``, LayerNorms (epsilon 1e-6) and the LM head in float32,
+GELU is the tanh approximation, RoPE uses the split-half layout with
+float32 angles, and the residual stream stays in the compute dtype.
+Parameters are held in ``param_dtype``. flax keeps float32 params and
+casts them to ``dtype`` at every call; training does the same here
+(``param_dtype=torch.float32``), so the optimizer updates float32 weights.
+``param_dtype`` defaults to ``dtype``, the serving choice: casting once at
+load gives the same numbers as casting every call, and a decode step then
+reads bf16 weights.
 
 Unlike the JAX module, whose cache collection is returned fresh from every
 apply, the page pools here are tensors the caller owns and the forward
 updates them in place (``index_put_``). :meth:`TransformerLM.init_paged_cache`
 makes them.
 
-The full causal forward without a paged cache runs the flash-attention
-kernel K1 in the JAX package; it arrives with the port's TransformerLM
-training slice, and until then :meth:`TransformerLM.forward` refuses it.
+Left for later slices, and refused by the constructor: dropout, remat,
+mixture-of-experts MLPs, the fused cross-entropy head and sequence
+parallelism.
 """
 
 from __future__ import annotations
@@ -34,10 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_pytorch_tpu_torch.ops.paged_attention import (
-    NEG_INF,
-    paged_attention,
-)
+from distributed_pytorch_tpu_torch.ops.attention import NEG_INF
+from distributed_pytorch_tpu_torch.ops.flash_attention import flash_attention
+from distributed_pytorch_tpu_torch.ops.paged_attention import paged_attention
 from distributed_pytorch_tpu_torch.ops.quant import quantize_int8
 
 
@@ -73,6 +79,21 @@ def apply_rope(
     return rotated.to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` holding its weights in ``param_dtype`` and computing in
+    ``dtype``: input, weight and bias are cast at every call, as flax's
+    ``Dense`` promotes its params. With the two dtypes equal it is
+    ``nn.Linear``."""
+
+    def __init__(self, in_features, out_features, *, dtype, param_dtype, device=None):
+        super().__init__(in_features, out_features, dtype=param_dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 @dataclasses.dataclass
 class PagedKV:
     """One attention layer's page pools (names as in the JAX cache
@@ -95,12 +116,15 @@ class PagedKV:
 
 
 class Attention(nn.Module):
-    """Multi-head attention with RoPE over the paged KV cache.
+    """Multi-head causal attention with RoPE, over the paged KV cache or
+    (without one) the whole sequence.
 
     ``query``/``key``/``value`` are the flax ``DenseGeneral`` kernels
     ``[d_model, heads, head_dim]`` flattened to ``nn.Linear``; ``out``
     contracts ``[H, head_dim]`` back to ``d_model``. ``n_kv_heads`` > 0 is
-    grouped-query attention: query head ``h`` reads kv head ``h // group``."""
+    grouped-query attention: query head ``h`` reads kv head ``h // group``.
+    ``window`` > 0 is sliding-window attention (training path only, as in
+    the JAX module)."""
 
     def __init__(
         self,
@@ -108,9 +132,11 @@ class Attention(nn.Module):
         d_model: int,
         *,
         n_kv_heads: int = 0,
+        window: int = 0,
         rope_scale: float = 1.0,
         rope_theta: float = 10000.0,
         dtype: torch.dtype = torch.float32,
+        param_dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         super().__init__()
@@ -121,27 +147,39 @@ class Attention(nn.Module):
             raise ValueError(
                 f"n_heads {n_heads} not divisible by n_kv_heads {self.kv_heads}"
             )
+        if window < 0:
+            raise ValueError(f"window must be >= 0, got {window}")
+        self.window = window
         self.rope_scale = rope_scale
         self.rope_theta = rope_theta
         self.dtype = dtype
-        fk = dict(dtype=dtype, device=device)
-        self.query = nn.Linear(d_model, n_heads * self.head_dim, **fk)
-        self.key = nn.Linear(d_model, self.kv_heads * self.head_dim, **fk)
-        self.value = nn.Linear(d_model, self.kv_heads * self.head_dim, **fk)
-        self.out = nn.Linear(n_heads * self.head_dim, d_model, **fk)
+        fk = dict(dtype=dtype, param_dtype=param_dtype or dtype, device=device)
+        self.query = Linear(d_model, n_heads * self.head_dim, **fk)
+        self.key = Linear(d_model, self.kv_heads * self.head_dim, **fk)
+        self.value = Linear(d_model, self.kv_heads * self.head_dim, **fk)
+        self.out = Linear(n_heads * self.head_dim, d_model, **fk)
 
     def forward(
         self,
         x: torch.Tensor,
-        cache: PagedKV,
-        block_tables: torch.Tensor,
-        seq_lens: torch.Tensor,
+        cache: Optional[PagedKV] = None,
+        block_tables: Optional[torch.Tensor] = None,
+        seq_lens: Optional[torch.Tensor] = None,
         paged_kernel: bool = False,
     ) -> torch.Tensor:
-        """One decode step (T_step == 1) or prefill chunk over ``x``
-        [S, T_step, d_model]: RoPE at absolute positions ``seq_lens + i``,
-        write K/V into the pools, then attend. ``paged_kernel`` sends
-        single-token steps through :func:`paged_attention`."""
+        """Without ``cache``: the full causal forward over ``x`` [B, T,
+        d_model] (RoPE at positions 0..T-1, flash attention). With it: one
+        decode step (T_step == 1) or prefill chunk over ``x`` [S, T_step,
+        d_model]: RoPE at absolute positions ``seq_lens + i``, write K/V
+        into the pools, then attend. ``paged_kernel`` sends single-token
+        steps through :func:`paged_attention`."""
+        if cache is None:
+            return self._forward_full(x)
+        if self.window:
+            raise ValueError(
+                "paged decode does not compose with sliding-window attention "
+                "yet (as in the JAX module)"
+            )
         s, t_step, _ = x.shape
         x = x.to(self.dtype)
         q_raw = self.query(x).view(s, t_step, self.n_heads, self.head_dim)
@@ -163,6 +201,26 @@ class Attention(nn.Module):
         else:
             out = self._attend_gathered(q, cache, block_tables, positions)
         return self.out(out.reshape(s, t_step, self.n_heads * self.head_dim))
+
+    def _forward_full(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward: causal (optionally banded) attention of
+        every position over its prefix, through :func:`flash_attention`.
+        GQA repeats each kv head over its query group first (the
+        reference's ``jnp.repeat(k, group, axis=2)``); autograd sums the
+        gradients of the copies."""
+        b, t, _ = x.shape
+        x = x.to(self.dtype)
+        q_raw = self.query(x).view(b, t, self.n_heads, self.head_dim)
+        k_raw = self.key(x).view(b, t, self.kv_heads, self.head_dim)
+        v = self.value(x).view(b, t, self.kv_heads, self.head_dim)
+        q = apply_rope(q_raw, theta=self.rope_theta, scale=self.rope_scale)
+        k = apply_rope(k_raw, theta=self.rope_theta, scale=self.rope_scale)
+        if self.kv_heads != self.n_heads:
+            group = self.n_heads // self.kv_heads
+            k = k.repeat_interleave(group, dim=2)
+            v = v.repeat_interleave(group, dim=2)
+        out = flash_attention(q, k, v, causal=True, window=self.window)
+        return self.out(out.reshape(b, t, self.n_heads * self.head_dim))
 
     def _write(self, cache, k, v, block_tables, positions) -> None:
         """Scatter this step's K/V into (physical page, in-page offset).
@@ -218,11 +276,14 @@ class Attention(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    def __init__(self, d_ff: int, d_model: int, *, dtype=torch.float32, device=None):
+    def __init__(
+        self, d_ff: int, d_model: int, *, dtype=torch.float32, param_dtype=None,
+        device=None,
+    ):
         super().__init__()
-        fk = dict(dtype=dtype, device=device)
-        self.up = nn.Linear(d_model, d_ff, **fk)
-        self.down = nn.Linear(d_ff, d_model, **fk)
+        fk = dict(dtype=dtype, param_dtype=param_dtype or dtype, device=device)
+        self.up = Linear(d_model, d_ff, **fk)
+        self.down = Linear(d_ff, d_model, **fk)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -243,21 +304,26 @@ class TransformerBlock(nn.Module):
         d_ff: int,
         *,
         n_kv_heads: int = 0,
+        window: int = 0,
         rope_scale: float = 1.0,
         rope_theta: float = 10000.0,
         dtype=torch.float32,
+        param_dtype=None,
         device=None,
     ):
         super().__init__()
         self.ln_attn = _layer_norm(d_model, device)
         self.attention = Attention(
-            n_heads, d_model, n_kv_heads=n_kv_heads, rope_scale=rope_scale,
-            rope_theta=rope_theta, dtype=dtype, device=device,
+            n_heads, d_model, n_kv_heads=n_kv_heads, window=window,
+            rope_scale=rope_scale, rope_theta=rope_theta, dtype=dtype,
+            param_dtype=param_dtype, device=device,
         )
         self.ln_mlp = _layer_norm(d_model, device)
-        self.mlp = MLPBlock(d_ff, d_model, dtype=dtype, device=device)
+        self.mlp = MLPBlock(
+            d_ff, d_model, dtype=dtype, param_dtype=param_dtype, device=device
+        )
 
-    def forward(self, x, cache, block_tables, seq_lens, paged_kernel=False):
+    def forward(self, x, cache=None, block_tables=None, seq_lens=None, paged_kernel=False):
         x = x + self.attention(
             self.ln_attn(x.float()), cache, block_tables, seq_lens, paged_kernel
         )
@@ -265,13 +331,15 @@ class TransformerBlock(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """GPT-style causal LM, token ids [S, T] -> logits, over a paged cache.
+    """GPT-style causal LM, token ids [B, T] -> logits [B, T, V] (float32).
 
     Constructor arguments are the JAX module's (``vocab_size``, ``d_model``,
     ``n_layers``, ``n_heads``, ``d_ff``, ``dtype``, ``n_kv_heads``,
-    ``rope_scale``, ``rope_theta``) plus ``device``. Training-side options
-    (dropout, remat, MoE, tied embeddings, the fused CE head, sliding
-    windows, sequence parallelism) arrive with the training slice."""
+    ``attention_window``, ``tie_embeddings``, ``rope_scale``,
+    ``rope_theta``) plus ``param_dtype`` (see the module docstring) and
+    ``device``. ``dropout_rate``, ``remat``, ``n_experts`` and
+    ``fused_head_chunk`` are accepted only at their off values: those
+    options arrive with later slices of the port."""
 
     def __init__(
         self,
@@ -282,12 +350,31 @@ class TransformerLM(nn.Module):
         d_ff: int = 2048,
         *,
         dtype: torch.dtype = torch.float32,
+        param_dtype: Optional[torch.dtype] = None,
         n_kv_heads: int = 0,
+        attention_window: int = 0,
+        tie_embeddings: bool = False,
         rope_scale: float = 1.0,
         rope_theta: float = 10000.0,
+        dropout_rate: float = 0.0,
+        remat: bool = False,
+        n_experts: int = 0,
+        fused_head_chunk: int = 0,
         device=None,
     ):
         super().__init__()
+        later = {
+            "dropout_rate": (dropout_rate, "the training-regularisation slice"),
+            "remat": (remat, "the training-regularisation slice"),
+            "n_experts": (n_experts, "the parallelism slice (MoE/EP)"),
+            "fused_head_chunk": (fused_head_chunk, "the fused cross-entropy head slice"),
+        }
+        for name, (value, slice_name) in later.items():
+            if value:
+                raise NotImplementedError(
+                    f"TransformerLM({name}={value!r}) is not ported yet; it "
+                    f"arrives with {slice_name} (ROADMAP.md Queue 1)"
+                )
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.n_layers = n_layers
@@ -295,18 +382,37 @@ class TransformerLM(nn.Module):
         self.n_kv_heads = n_kv_heads or n_heads
         self.head_dim = d_model // n_heads
         self.dtype = dtype
-        self.embed = nn.Embedding(vocab_size, d_model, dtype=dtype, device=device)
+        self.param_dtype = param_dtype or dtype
+        self.attention_window = attention_window
+        self.tie_embeddings = tie_embeddings
+        self.embed = nn.Embedding(
+            vocab_size, d_model, dtype=self.param_dtype, device=device
+        )
         self.blocks = nn.ModuleList(
             TransformerBlock(
                 n_heads, d_model, d_ff, n_kv_heads=n_kv_heads,
-                rope_scale=rope_scale, rope_theta=rope_theta, dtype=dtype,
+                window=attention_window, rope_scale=rope_scale,
+                rope_theta=rope_theta, dtype=dtype, param_dtype=self.param_dtype,
                 device=device,
             )
             for _ in range(n_layers)
         )
         self.ln_final = _layer_norm(d_model, device)
-        # Logits in float32 for a numerically stable softmax.
-        self.lm_head = nn.Linear(d_model, vocab_size, dtype=torch.float32, device=device)
+        # Logits in float32 for a numerically stable softmax. Tied: the
+        # head is the transposed token embedding in float32, no bias.
+        self.lm_head = None if tie_embeddings else nn.Linear(
+            d_model, vocab_size, dtype=torch.float32, device=device
+        )
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        # Gathering then casting is flax's cast-then-gather, row for row.
+        return self.embed(tokens.long()).to(self.dtype)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ln_final(x.float())
+        if self.lm_head is None:
+            return x @ self.embed.weight.float().t()
+        return self.lm_head(x)
 
     def init_paged_cache(
         self,
@@ -351,39 +457,46 @@ class TransformerLM(nn.Module):
         paged_kernel: bool = False,
         logits: Optional[str] = "all",
     ) -> Optional[torch.Tensor]:
-        """One paged step over ``tokens`` [S, T_step]: writes every layer's
-        K/V into ``cache`` (in place) at positions ``seq_lens + i``.
+        """Without ``cache``: the full causal forward over ``tokens`` [B, T]
+        (the training path; attention through the flash kernels), returning
+        float32 logits [B, T, V].
 
-        ``logits``: ``"all"`` -> [S, T_step, V] float32, ``"last"`` -> [S, V]
-        at the final position, ``None`` -> no LM head (a prefill chunk that
-        only fills the cache)."""
-        if cache is None or block_tables is None or seq_lens is None:
-            raise NotImplementedError(
-                "TransformerLM's full causal forward runs the flash-attention "
-                "kernel K1 (distributed_pytorch_tpu/ops/flash_attention.py:"
-                "_fwd_kernel), which the port brings with its TransformerLM "
-                "training slice; this slice runs only the paged serving path "
-                "(pass cache, block_tables and seq_lens)"
-            )
-        if len(cache) != self.n_layers:
-            raise ValueError(f"cache has {len(cache)} layers, model has {self.n_layers}")
+        With ``cache``, ``block_tables`` and ``seq_lens``: one paged step
+        over ``tokens`` [S, T_step], writing every layer's K/V into
+        ``cache`` (in place) at positions ``seq_lens + i``. ``logits``:
+        ``"all"`` -> [S, T_step, V] float32, ``"last"`` -> [S, V] at the
+        final position, ``None`` -> no LM head (a prefill chunk that only
+        fills the cache)."""
         if logits not in ("all", "last", None):
             raise ValueError(f"logits must be 'all', 'last' or None, got {logits!r}")
-        x = self.embed(tokens.long())
-        for block, layer_cache in zip(self.blocks, cache):
-            x = block(x, layer_cache, block_tables, seq_lens, paged_kernel)
+        if cache is None:
+            if block_tables is not None or seq_lens is not None:
+                raise ValueError("block_tables/seq_lens need a paged cache")
+            x = self._embed(tokens)
+            for block in self.blocks:
+                x = block(x)
+        else:
+            if block_tables is None or seq_lens is None:
+                raise ValueError("a paged step needs block_tables and seq_lens")
+            if len(cache) != self.n_layers:
+                raise ValueError(
+                    f"cache has {len(cache)} layers, model has {self.n_layers}"
+                )
+            x = self._embed(tokens)
+            for block, layer_cache in zip(self.blocks, cache):
+                x = block(x, layer_cache, block_tables, seq_lens, paged_kernel)
         if logits is None:
             return None
         if logits == "last":
             x = x[:, -1]
-        return self.lm_head(self.ln_final(x.float()))
+        return self._head(x)
 
 
 def init_random_(model: TransformerLM, seed: int) -> TransformerLM:
     """Fill ``model`` in place with seeded random weights, drawn on the
     model's own device: flax's defaults (lecun-normal kernels, unit-variance
     normal embedding, zero biases, unit LayerNorm scales)."""
-    device = model.lm_head.weight.device
+    device = model.embed.weight.device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.no_grad():
@@ -402,7 +515,8 @@ def init_random_(model: TransformerLM, seed: int) -> TransformerLM:
 def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``TransformerLM``'s params tree (numpy or jax arrays) as a
     state dict for the port's :class:`TransformerLM` (float32; ``load_state_dict``
-    casts to the compute dtype). Layouts: ``DenseGeneral`` kernels
+    casts to ``param_dtype``; a tied model's tree has no ``lm_head``, and
+    neither has the state dict). Layouts: ``DenseGeneral`` kernels
     ``[d_model, H, Dh]`` -> ``Linear.weight [H*Dh, d_model]``; the attention
     ``out`` kernel ``[H, Dh, d_model]`` -> ``[d_model, H*Dh]``; ``Dense``
     kernels ``[in, out]`` -> their transpose; LayerNorm ``scale`` ->
@@ -421,8 +535,6 @@ def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = arr(tree["scale"])
         sd[f"{prefix}.bias"] = arr(tree["bias"])
 
-    if "lm_head" not in flax_params:
-        raise NotImplementedError("tied embeddings arrive with the training slice")
     sd: Dict[str, np.ndarray] = {"embed.weight": arr(flax_params["embed"]["embedding"])}
     i = 0
     while f"block_{i}" in flax_params:
@@ -441,5 +553,6 @@ def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
             linear(f"{pre}.mlp.{name}", mlp["kernel"], mlp["bias"])
         i += 1
     norm("ln_final", flax_params["ln_final"])
-    linear("lm_head", flax_params["lm_head"]["kernel"], flax_params["lm_head"]["bias"])
+    if "lm_head" in flax_params:  # absent under tie_embeddings
+        linear("lm_head", flax_params["lm_head"]["kernel"], flax_params["lm_head"]["bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}

@@ -8,10 +8,10 @@ The library is loaded with ``ctypes``; pointers and the stream go in as
 ``c_void_p``. Nothing here runs at import: the CPU tests import every
 module of the port, and there is no ``nvcc`` on a machine without CUDA.
 
-``LAUNCHES`` counts kernel launches by name. Each wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels (``chip_smoke.py`` clears it, drives the path,
-and reads it).
+``LAUNCHES`` counts kernel launches by name. Every wrapper launches through
+:func:`launch`, which adds one there and nowhere else, so a run can show
+that its main path went through the kernels (``chip_smoke.py`` clears it,
+drives the path, and reads it).
 """
 
 from __future__ import annotations
@@ -24,19 +24,31 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+
+from distributed_pytorch_tpu_torch.utils.platform import is_hopper
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 #: Kernel library name -> its source file under ``csrc/``.
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {
+    "paged_attention": "paged_attention.cu",
+    "flash_attention": "flash_attention.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 )
+
+#: Element types of the kernels' C interfaces, by the code they take.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: Head dims the kernels are instantiated for.
+HEAD_DIMS = (64, 128)
 
 #: Launches per kernel name since the last ``LAUNCHES.clear()``.
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
@@ -114,3 +126,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, fn: Callable[..., int], device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream, raise on a nonzero CUDA error code, and count one launch of
+    kernel ``name``. Refuses a card other than Hopper, the only target the
+    libraries are built for."""
+    with torch.cuda.device(device):
+        if not is_hopper():
+            raise RuntimeError(
+                f"the {name} kernel is built for sm_90a (Hopper); "
+                f"{torch.cuda.get_device_name()} is sm_"
+                f"{''.join(map(str, torch.cuda.get_device_capability()))}"
+            )
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1

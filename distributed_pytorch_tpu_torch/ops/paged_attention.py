@@ -31,15 +31,10 @@ from typing import Optional
 import torch
 
 from distributed_pytorch_tpu_torch.ops import _build
-from distributed_pytorch_tpu_torch.utils.platform import is_hopper
-
-#: Masked-logit fill, the JAX package's ``ops/attention.py:NEG_INF``: finite,
-#: so a row whose every key is masked never produces ``exp(-inf - -inf)``.
-NEG_INF = -1e30
+from distributed_pytorch_tpu_torch.ops._build import DTYPE_CODES, HEAD_DIMS
+from distributed_pytorch_tpu_torch.ops.attention import NEG_INF
 
 KERNEL = "paged_attention_decode"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 _MAX_SMEM_BYTES = 227 * 1024  # a block's dynamic shared memory on Hopper
 
 
@@ -147,8 +142,8 @@ def _launch(q3, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale):
         "all operands must be on one CUDA device",
     )
     _check(all(t.is_contiguous() for t in tensors), "operands must be contiguous")
-    _check(q3.dtype in _DTYPE_CODES, f"q dtype {q3.dtype} not in float32/bfloat16")
-    _check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
+    _check(q3.dtype in DTYPE_CODES, f"q dtype {q3.dtype} not in float32/bfloat16")
+    _check(d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
     _check(d_pool == d and tuple(v_pool.shape) == tuple(k_pool.shape),
            f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} vs head dim {d}")
     if quantized:
@@ -172,27 +167,16 @@ def _launch(q3, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale):
     out = torch.empty_like(q3)
     if s == 0:
         return out
-    lib = _kernel_lib()
     null = ctypes.c_void_p(0)
-    with torch.cuda.device(q3.device):
-        if not is_hopper():
-            raise RuntimeError(
-                f"the paged-decode kernel is built for sm_90a (Hopper); "
-                f"{torch.cuda.get_device_name()} is sm_"
-                f"{''.join(map(str, torch.cuda.get_device_capability()))}"
-            )
-        rc = lib.paged_attention_decode(
-            q3.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quantized else null,
-            v_scale.data_ptr() if quantized else null,
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            s, h, kv_heads, d, page, block_tables.shape[1], d**-0.5,
-            _DTYPE_CODES[q3.dtype], int(quantized),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"paged_attention_decode launch failed: CUDA error {rc}")
-    _build.LAUNCHES[KERNEL] += 1
+    _build.launch(
+        KERNEL, _kernel_lib().paged_attention_decode, q3.device,
+        q3.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else null,
+        v_scale.data_ptr() if quantized else null,
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        s, h, kv_heads, d, page, block_tables.shape[1], d**-0.5,
+        DTYPE_CODES[q3.dtype], int(quantized),
+    )
     return out
 
 

@@ -3,15 +3,22 @@
 Imports torch and the port only, so it runs on a machine with a card and no
 JAX. Every test is marked ``cuda`` and skips where no CUDA device is
 visible; on the card run ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
-Tolerances: float32 1e-5 (sums in another order); bf16 2e-2 (the plain
-version rounds scores and the weighted sum through bf16, the kernel keeps
-float32).
+Tolerances (atol, rtol): float32 (1e-5, 1e-5), sums in another order.
+K4 in bf16 (2e-2, 2e-2): the plain version rounds scores and the weighted
+sum through bf16, the kernel keeps float32. K1-K3 in bf16 (1e-3, 1e-2) on
+each row's RMS over the head dim: the plain versions round where the
+kernels round, but fp32 sums in another order now and then flip the bf16
+rounding of one probability, which moves an element by up to 2^-8 of that
+term however small the element is. lse is float32 on both sides and held
+at (1e-5, 1e-5) element by element whatever q's dtype.
 """
 
 import pytest
 import torch
 
 from distributed_pytorch_tpu_torch.ops import _build
+from distributed_pytorch_tpu_torch.ops import flash_attention as fa
+from distributed_pytorch_tpu_torch.ops.attention import dot_product_attention
 from distributed_pytorch_tpu_torch.ops.paged_attention import (
     KERNEL,
     paged_attention,
@@ -106,3 +113,75 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match="head dim"):
         paged_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                         v[..., :32].contiguous(), tables, lens)
+
+
+FLASH_CASES = [
+    (torch.float32, 64, True, 0, 0),
+    (torch.float32, 128, False, 0, 0),
+    (torch.bfloat16, 128, True, 0, 0),
+    (torch.bfloat16, 128, True, 256, 0),
+    (torch.bfloat16, 64, True, 256, 300),  # rows wholly masked
+]
+
+
+@pytest.mark.parametrize("t", [1, 1000])
+@pytest.mark.parametrize("dtype,d,causal,window,q_offset", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(device, dtype, d, causal, window, q_offset, t):
+    """K1 (out, lse), K2 (dQ) and K3 (dK, dV) against their plain versions,
+    at T = 1 and at T = 1000 (a tail tile: no dense fallback)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(t + d)
+    q, k, v, do = (torch.randn(4, t, d, generator=gen, device=device).to(dtype)
+                   for _ in range(4))
+    before = {n: _build.LAUNCHES[n] for n in (fa.KERNEL_FWD, fa.KERNEL_BWD_DQ, fa.KERNEL_BWD_DKV)}
+    out, lse = fa.flash_fwd(q, k, v, causal, window, q_offset)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, causal, window, q_offset)
+    delta = (do.float() * ref_out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, ref_lse, delta, causal, window, q_offset)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*args)
+    pairs = [(out, ref_out), (lse, ref_lse), (dq, fa.flash_bwd_dq_reference(*args)),
+             (dk, ref_dk), (dv, ref_dv)]
+    torch.cuda.synchronize()
+    assert {n: _build.LAUNCHES[n] - c for n, c in before.items()} == dict.fromkeys(before, 1)
+    for i, (got, ref) in enumerate(pairs):
+        assert torch.isfinite(got).all()
+        if i == 1 or dtype == torch.float32:  # lse, or any float32 result
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-5, rtol=1e-5)
+        else:
+            rms_err = (got.float() - ref.float()).square().mean(-1).sqrt()
+            rms_ref = ref.float().square().mean(-1).sqrt()
+            assert (rms_err <= 1e-3 + 1e-2 * rms_ref).all(), (rms_err / (1e-3 + 1e-2 * rms_ref)).max()
+
+
+def test_flash_attention_autograd_launches_the_three_kernels(device):
+    """[B, T, H, D] through flash_attention forward and backward: one launch
+    of each kernel, and the dense version's output and gradients (float32)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    q, k, v = (torch.randn(2, 300, 4, 64, generator=gen, device=device).requires_grad_()
+               for _ in range(3))
+    g = torch.randn(2, 300, 4, 64, generator=gen, device=device)
+    before = {n: _build.LAUNCHES[n] for n in (fa.KERNEL_FWD, fa.KERNEL_BWD_DQ, fa.KERNEL_BWD_DKV)}
+    out = fa.flash_attention(q, k, v, causal=True, window=100)
+    grads = torch.autograd.grad((out * g).sum(), (q, k, v))
+    ref = dot_product_attention(q, k, v, causal=True, window=100)
+    ref_grads = torch.autograd.grad((ref * g).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert {n: _build.LAUNCHES[n] - c for n, c in before.items()} == dict.fromkeys(before, 1)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(device):
+    q = torch.zeros(2, 16, 64, device=device)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q[..., :32].contiguous(), q[..., :32].contiguous(), q[..., :32].contiguous())
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_fwd(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q.half(), q.half(), q.half())

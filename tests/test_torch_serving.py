@@ -247,7 +247,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, distributed_pytorch_tpu_torch, "
         "distributed_pytorch_tpu_torch.serving.engine, "
-        "distributed_pytorch_tpu_torch.ops._build\n"
+        "distributed_pytorch_tpu_torch.ops._build, "
+        "distributed_pytorch_tpu_torch.obs.goodput\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distributed_pytorch_tpu')]\n"
         "print(bad)\n"

@@ -152,9 +152,17 @@ def test_prefill_then_decode_matches_full_forward(models, prefill):
 
 
 def test_full_causal_forward_is_refused_until_k1():
-    tm = TransformerLM(**CFG)
-    with pytest.raises(NotImplementedError, match="K1"):
-        tm(torch.zeros((1, 4), dtype=torch.long))
+    """K1 is ported: the full causal forward, refused until then, runs the
+    flash-attention path (on the CPU, K1's plain version) and gives the JAX
+    model's logits (float32, 1e-4); options of later slices stay refused."""
+    jm, params, tm = build()
+    toks = tokens(6, (2, 9))
+    full = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(toks)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, full, atol=1e-4, rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="fused cross-entropy"):
+        TransformerLM(**CFG, fused_head_chunk=32)
 
 
 def test_write_past_table_capacity_goes_to_null_page(models):
